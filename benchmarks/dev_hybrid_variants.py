@@ -22,21 +22,14 @@ def main() -> None:
     if args.smoke:
         os.environ["JAX_PLATFORMS"] = "cpu"
 
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import jax
     import jax.numpy as jnp
     from jax import lax
 
-    if args.smoke:
-        jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from gowebp_tpu.utils.compile_cache import enable_compile_cache
 
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    enable_compile_cache()
     from PIL import Image
 
     from bench import make_images, psnr

@@ -1,11 +1,12 @@
-"""gowebp_tpu — a TPU-native WebP codec in JAX/XLA/Pallas.
+"""gowebp_tpu — a WebP codec whose dense phases run on an accelerator
+through JAX/XLA.
 
 Built from scratch to cover the capability surface of libwebp (as
 catalogued from the DaanV2/go-webp reference in SURVEY.md): VP8 lossy,
 VP8L lossless, alpha, RIFF container, mux/demux, animation.
 
 Design: dense pixel math (transforms, prediction, filtering, histograms)
-runs on TPU as JAX/Pallas kernels; sequential entropy coding runs on the
+runs on the accelerator as JAX programs; sequential entropy coding runs on the
 host (Python reference path + native C++ fast path) over tensorized
 symbol streams.
 """

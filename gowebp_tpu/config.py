@@ -61,7 +61,7 @@ class EncoderConfig:
     qmin: int = 0
     qmax: int = 100
     # Dense-phase backend: "numpy" = host path (C++/NumPy closed loop);
-    # "jax" = exact closed-loop TPU wavefront engine (bit-identical
+    # "jax" = exact closed-loop device wavefront engine (bit-identical
     # output, batched over the mesh); "jax-openloop" = fully-parallel
     # open-loop engine (maximum throughput, slight quality drift).
     plane_backend: str = "numpy"

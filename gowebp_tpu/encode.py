@@ -146,7 +146,7 @@ def encode_rgba_batch(
     *,
     quality: float = 75.0,
     threads: int = 0,
-    use_tpu: bool = True,
+    use_device: bool = True,
     engine: str = "hybrid",
 ) -> list:
     """Lossy-encode a batch of same-shaped images (full-quality path).
@@ -157,28 +157,28 @@ def encode_rgba_batch(
     "hybrid" (default: parallel mode search + exact fixed-mode
     closed-loop wavefront), "wavefront" (full in-loop RD search,
     bit-identical to ``encode_rgba(im)`` with plane_backend="jax"), or
-    "openloop" (fastest, prediction drift).  Falls back to per-image
-    host encoding when TPU/native emission is unavailable or shapes
-    differ.  VERDICT r2 item 9: this used to duplicate a reduced
-    (no-segmentation, no-i4) wavefront path.
+    "openloop" (fastest, prediction drift).  Encodes per image on the
+    host when ``use_device`` is False, when the native entropy emitter
+    is not built, or when shapes differ.  Errors raised on the device
+    path (out of memory, a failed compile) propagate.
     """
     import numpy as np
+
+    from .entropy.native_loader import available as native_available
 
     if not images:
         return []
     shape = np.asarray(images[0]).shape
     config = EncoderConfig(lossless=False, quality=quality)
-    if not use_tpu or any(np.asarray(im).shape != shape for im in images):
+    if (not use_device or not native_available()
+            or any(np.asarray(im).shape != shape for im in images)):
         return [encode_rgba(im, config=config) for im in images]
-    try:
-        from .ops.encode_pipeline import encode_rgba_batch_pipelined
+    from .ops.encode_pipeline import encode_rgba_batch_pipelined
 
-        return encode_rgba_batch_pipelined(
-            images, quality=quality,
-            threads=(threads if threads > 0 else min(8, len(images))),
-            chunk=min(16, len(images)), engine=engine, config=config)
-    except RuntimeError:  # native tokenizer unavailable
-        return [encode_rgba(im, config=config) for im in images]
+    return encode_rgba_batch_pipelined(
+        images, quality=quality,
+        threads=(threads if threads > 0 else min(8, len(images))),
+        chunk=min(16, len(images)), engine=engine, config=config)
 
 
 def _cleanup_transparent_area(rgba: np.ndarray) -> np.ndarray:

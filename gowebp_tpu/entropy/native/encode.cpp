@@ -1,6 +1,6 @@
 // Native encode emission: VP8 boolean-coded token streams and VP8L
 // LSB-first Huffman emission, driven from per-MB/per-op tensors produced
-// by the (NumPy or TPU) dense phase.
+// by the (NumPy or device) dense phase.
 //
 // Mirrors the decode semantics in vp8_dec.cpp exactly (same contexts,
 // same token tree); the Python emitter (models/vp8/encoder.py) is the

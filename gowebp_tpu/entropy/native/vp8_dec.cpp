@@ -984,7 +984,7 @@ static void filter_simple(uint8_t* p, int hstride, int vstride, int n,
 
 // Shared entropy-decode phase: partition-0 mode parse + token-partition
 // residual decode into dequantized per-MB coefficient blocks (the host
-// half of the TPU split, SURVEY.md Â§7).  Returns 0 on success.
+// half of the host/device split, SURVEY.md Â§7).  Returns 0 on success.
 static int parse_frame_mbs(
     const uint8_t* p0, uint64_t p0_size, uint64_t p0_pos, uint32_t p0_value,
     uint32_t p0_range, uint32_t p0_bitcount,
@@ -1694,8 +1694,8 @@ void wtpu_yuv_to_rgba_fancy(const uint8_t* yp, const uint8_t* up,
   }
 }
 
-// Host half of the TPU decode split (SURVEY.md §7 "arrays on TPU, bytes
-// on host"): entropy decode only, exporting dense per-MB tensors for the
+// Host half of the decode split (SURVEY.md §7 "arrays on the device,
+// bytes on host"): entropy decode only, exporting dense per-MB tensors for the
 // JAX reconstruction engine (gowebp_tpu/ops/vp8_recon_jax.py).
 //
 // coeffs_out: int16 [mb_h*mb_w][24][16] dequantized coefficients in
@@ -1775,7 +1775,7 @@ int wtpu_vp8_decode_symbols(
 
 // ----------------------------------------------------------------------
 // Closed-loop i16 encoder dense phase (mode search + FDCT/FWHT + quant +
-// exact decoder-mirror reconstruction).  Host production path; the TPU
+// exact decoder-mirror reconstruction).  Host production path; the device
 // plane engine (ops/encode_plane_jax.py) is the batched open-loop twin.
 // ----------------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 // VP8L decode hot loops — native host layer.
 //
-// The TPU-first architecture (SURVEY.md §7) keeps sequential bit-level
+// The array-first architecture (SURVEY.md §7) keeps sequential bit-level
 // work on the host: this file implements the per-pixel Huffman/LZ77/
 // color-cache decode loop and the raster predictor inverse, driven from
 // Python via ctypes.  Written from the lossless bitstream spec; the
@@ -858,7 +858,7 @@ void wtpu_vp8l_choose_predictors(const uint32_t* argb, int h, int w,
   // -sum_bins hist[m][t][bin]*logp[bin]; glob = sum_t hist[modes[t]]),
   // so storing the (14, T, 1024) tensor replaces the 14 full-image
   // residual re-scans PER refinement iteration with tiny table sums —
-  // identical numbers, ~4x less work overall (the TPU twin
+  // identical numbers, ~4x less work overall (the device twin
   // predictor_search_entropy runs the same algebra on device).
   const size_t kHistCap = (size_t)192 << 20;   // bytes
   const bool keep_all =

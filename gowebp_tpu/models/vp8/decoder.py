@@ -1,10 +1,10 @@
 """VP8 (WebP lossy) decoder — spec-exact reference implementation.
 
-Split per the TPU-first design (SURVEY.md §7): the *host phase* here runs
+Split per the array-first design (SURVEY.md §7): the *host phase* here runs
 the sequential entropy decode (boolean coder) and produces dense per-MB
 tensors — dequantized coefficients, modes, filter info.  The *plane phase*
 (reconstruction, loop filter, upsampling) is pure array math; the NumPy
-versions in this file are the golden reference for the JAX/TPU engine in
+versions in this file are the golden reference for the JAX engine in
 gowebp_tpu/ops/vp8_recon_jax.py.
 
 Feature parity target: /root/reference/pkg/vp8/vp8_dec.go (headers
@@ -845,7 +845,8 @@ def _parse_frame_mbs(st: FrameState, bd: BoolDecoder,
     """Pure-Python entropy decode: partition-0 modes + token residuals.
 
     Returns the mb_h x mb_w grid of MBData with dequantized coefficients
-    (the host half of the TPU split; oracle for wtpu_vp8_decode_symbols).
+    (the host half of the host/device split; oracle for
+    wtpu_vp8_decode_symbols).
     """
     mb_w, mb_h = st.mb_w, st.mb_h
     intra_t = np.full(4 * mb_w, B_DC, np.int32)
@@ -890,7 +891,7 @@ def _parse_frame_mbs(st: FrameState, bd: BoolDecoder,
 
 def decode_vp8_symbols(payload: bytes, bypass_filtering: bool = False,
                        filter_level_override: int | None = None):
-    """Host entropy phase → dense tensors for the TPU recon engine.
+    """Host entropy phase → dense tensors for the device recon engine.
 
     Returns ``(st, coeffs, modes)`` where ``coeffs`` is int16
     (mb_h*mb_w, 24, 16) dequantized coefficients (luma DCs already
@@ -1092,7 +1093,7 @@ def decode_vp8_symbols_batch(payloads: list):
 
 
 def vp8_filter_params(st: FrameState, modes: np.ndarray) -> np.ndarray:
-    """Per-MB loop-filter parameters for the TPU engine.
+    """Per-MB loop-filter parameters for the device engine.
 
     Returns int32 (mb_h, mb_w, 4): [limit, ilevel, hev_thresh, inner];
     limit < 0 disables filtering for the MB (matches the reference's
@@ -1122,7 +1123,7 @@ def vp8_filter_params(st: FrameState, modes: np.ndarray) -> np.ndarray:
 
 def decode_vp8_yuv_jax(payload: bytes, bypass_filtering: bool = False,
                        filter_level_override: int | None = None):
-    """TPU decode path: host entropy decode → JAX reconstruction engine.
+    """Device decode path: host entropy decode → JAX reconstruction engine.
 
     Bit-identical to decode_vp8_yuv (dequant, iDCT, intra wavefront and
     loop filter run on-device, gowebp_tpu/ops/vp8_recon_jax.py).

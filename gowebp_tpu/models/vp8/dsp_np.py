@@ -2,7 +2,7 @@
 
 iDCT/WHT (RFC 6386 §14.3-14.4), intra predictors (§12.2-12.3), and the
 in-loop deblocking filters (§15).  These are the golden references for the
-JAX/Pallas TPU kernels in gowebp_tpu/ops/.
+JAX kernels in gowebp_tpu/ops/.
 
 Feature parity target: /root/reference/pkg/libwebp/dsp/dec.c.go (kernels
 behind the VP8Transform/VP8PredLuma*/VP8*Filter* dispatch tables).

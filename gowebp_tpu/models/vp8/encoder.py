@@ -1,6 +1,6 @@
 """VP8 (WebP lossy) encoder.
 
-TPU-first split: RGB→YUV420, prediction-candidate evaluation, FDCT/
+Array-first split: RGB→YUV420, prediction-candidate evaluation, FDCT/
 quantization and reconstruction are dense integer array math (NumPy
 reference here; JAX versions in gowebp_tpu/ops/).  The boolean-coder
 emission and header syntax are host-side.  Two-pass probability
@@ -1618,8 +1618,9 @@ def _rate_controlled_encode(y, u, v, w, h, config: EncoderConfig) -> bytes:
     return encode_vp8_frame(y, u, v, w, h, config)
 
 
-def encode_vp8_frame_tpu(y, u, v, width, height, config: EncoderConfig) -> bytes:
-    """Dense phase on TPU, emission on host.
+def encode_vp8_frame_device(y, u, v, width, height,
+                            config: EncoderConfig) -> bytes:
+    """Dense phase on the device, emission on host.
 
     plane_backend "jax" uses the exact closed-loop wavefront engine
     (bit-identical to the sequential host encoder, including the i4
@@ -1756,7 +1757,7 @@ def encode_vp8_webp(rgba: np.ndarray, config: EncoderConfig, stats=None) -> byte
     u = _pad_to_mb(u, 8)
     v = _pad_to_mb(v, 8)
     if config.plane_backend in ("jax", "jax-openloop"):
-        payload = encode_vp8_frame_tpu(y, u, v, w, h, config)
+        payload = encode_vp8_frame_device(y, u, v, w, h, config)
     elif config.target_size > 0 or config.target_psnr > 0:
         payload = _rate_controlled_encode(y, u, v, w, h, config)
     else:

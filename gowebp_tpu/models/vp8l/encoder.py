@@ -1,8 +1,8 @@
 """VP8L (WebP lossless) encoder.
 
-TPU-first split (SURVEY.md §7): entropy analysis, transforms, and the
+Array-first split (SURVEY.md §7): entropy analysis, transforms, and the
 per-tile predictor search are dense array ops (NumPy reference here, JAX
-versions in gowebp_tpu/ops/lossless_ops.py); backward-reference detection
+versions in gowebp_tpu/ops/lossless_jax.py); backward-reference detection
 is vectorized run-finding; only the final bit emission is a sequential
 host loop (with a native C++ twin planned in entropy/native/).
 
@@ -571,38 +571,37 @@ def _emit_refs(bw: BitWriter, refs: RefStream, codes, width: int, lut) -> None:
 
 
 def _choose_predictors_auto(argb: np.ndarray, bits: int,
-                            refine_iters: int,
-                            row_step: int = 1) -> np.ndarray:
-    """Dispatch the predictor analysis to TPU for large images.
+                            refine_iters: int, row_step: int = 1,
+                            device: bool | None = None,
+                            stats=None) -> np.ndarray:
+    """Run the predictor analysis on the device for large images.
 
     The per-tile entropy chooser is the pixel-rate part of VP8L
-    analysis (SURVEY.md §7 step 4 planned it on TPU).  When a TPU
-    backend is the JAX default and the image is big enough to amortize
-    the transfer (≥1 MP, or always with GOWEBP_TPU_VP8L_ANALYSIS=1),
-    run `ops.lossless_jax.predictor_search_entropy` — the same
-    histogram-entropy cost + global refinement, one device pass —
-    and fall back to the host chooser otherwise or on any device
-    error.  f32-vs-f64 scoring can flip rare near-tie tiles; both maps
-    price within a fraction of a percent (golden-tested)."""
-    import os
+    analysis (SURVEY.md §7 step 4).  ``device=None`` decides from the
+    input: when the JAX default backend is an accelerator and the image
+    is big enough to amortize the transfer (≥1 MP), run
+    `ops.lossless_jax.predictor_search_entropy` — the same
+    histogram-entropy cost + global refinement, one device pass — and
+    the host chooser otherwise.  ``device=True``/``False`` forces one
+    side.  Device errors propagate.  f32-vs-f64 scoring can flip rare
+    near-tie tiles; both maps price within a fraction of a percent
+    (golden-tested).  ``stats.predictor_chooser`` records the side."""
+    import jax
 
-    force = os.environ.get("GOWEBP_TPU_VP8L_ANALYSIS") == "1"
-    big = argb.shape[0] * argb.shape[1] >= (1 << 20)
-    if force or big:
-        try:
-            import jax
+    if device is None:
+        device = (argb.shape[0] * argb.shape[1] >= (1 << 20)
+                  and jax.default_backend() != "cpu")
+    if stats is not None:
+        stats.predictor_chooser = "device" if device else "host"
+    if device:
+        from ...ops.lossless_jax import predictor_search_entropy
 
-            if force or jax.default_backend() not in ("cpu",):
-                from ...ops.lossless_jax import predictor_search_entropy
-
-                # (the device pass is fast enough to score every row;
-                # row_step only throttles the host chooser)
-                modes = np.asarray(predictor_search_entropy(
-                    jax.device_put(np.ascontiguousarray(argb, np.uint32)),
-                    bits, refine_iters=refine_iters)).astype(np.uint32)
-                return (0xFF000000 | (modes << 8)).astype(np.uint32)
-        except Exception:
-            pass   # host fallback below
+        # (the device pass is fast enough to score every row;
+        # row_step only throttles the host chooser)
+        modes = np.asarray(predictor_search_entropy(
+            jax.device_put(np.ascontiguousarray(argb, np.uint32)),
+            bits, refine_iters=refine_iters)).astype(np.uint32)
+        return (0xFF000000 | (modes << 8)).astype(np.uint32)
     return _choose_predictors(argb, bits, refine_iters=refine_iters,
                               row_step=row_step)
 
@@ -613,7 +612,7 @@ def _choose_predictors(argb: np.ndarray, bits: int,
     """Per-tile best predictor by residual-histogram entropy.
 
     Evaluates all 14 predictors over the whole image at once (this is the
-    TPU-shaped part — a (14, H, W) residual tensor reduced per tile).
+    array-shaped part — a (14, H, W) residual tensor reduced per tile).
     The cost per tile is the Shannon entropy of the four per-channel
     residual-byte histograms plus a small magnitude bias — the cost model
     of the reference's per-tile predictor search
@@ -1379,7 +1378,7 @@ def _cluster_histograms(H: np.ndarray, slices, max_groups: int = 256,
                         refine_iters: int = 2):
     """Tile-histogram clustering → (group_map, merged_rows).
 
-    Four stages, all vectorized (the TPU-shaped re-expression of the
+    Four stages, all vectorized (the array-shaped re-expression of the
     reference's histogram_enc.go combine path):
       1. entropy-bin preclustering — tiles whose (literal, red, blue
          [, distance]) entropy signature lands in the same discretized
@@ -1756,7 +1755,8 @@ def encode_vp8l_stream(argb: np.ndarray, *, quality: int = 75,
                        method: int = 4,
                        use_predictor: bool | None = None,
                        bw: BitWriter | None = None, stats=None,
-                       hint: int = 0) -> BitWriter:
+                       hint: int = 0,
+                       device_chooser: bool | None = None) -> BitWriter:
     """Encode the image-stream portion (after the 5-byte header).
 
     Crunch choice (reference EncoderAnalyze/CrunchConfig,
@@ -1764,6 +1764,8 @@ def encode_vp8l_stream(argb: np.ndarray, *, quality: int = 75,
     color-indexing path, but mid/large palettes also try the photo path
     (subtract-green/predictor) and the smaller stream wins.  ``method``
     scales trial effort like the reference's method→crunch mapping.
+    ``device_chooser`` picks where the predictor analysis runs (see
+    `_choose_predictors_auto`; None decides from the input).
     """
     h, w = argb.shape
     if bw is None:
@@ -1783,7 +1785,8 @@ def encode_vp8l_stream(argb: np.ndarray, *, quality: int = 75,
                                    method=method)
             photo_bw = BitWriter()
             _encode_stream_photo(photo_bw, argb, quality, method,
-                                 use_predictor, None, hint=hint)
+                                 use_predictor, None, hint=hint,
+                                 device_chooser=device_chooser)
             if stats is None:
                 bw.append_writer(pal_bw if pal_bw.bit_count
                                  <= photo_bw.bit_count else photo_bw)
@@ -1792,13 +1795,14 @@ def encode_vp8l_stream(argb: np.ndarray, *, quality: int = 75,
                                        method=method)
             else:
                 _encode_stream_photo(bw, argb, quality, method,
-                                     use_predictor, stats, hint=hint)
+                                     use_predictor, stats, hint=hint,
+                                     device_chooser=device_chooser)
         else:
             _encode_stream_palette(bw, argb, palette, quality, stats,
                                    method=method)
     else:
         _encode_stream_photo(bw, argb, quality, method, use_predictor, stats,
-                             hint=hint)
+                             hint=hint, device_chooser=device_chooser)
     return bw
 
 
@@ -1980,7 +1984,8 @@ def analyze_entropy(argb: np.ndarray, row_step: int = 1) -> str:
 
 def _encode_stream_photo(bw: BitWriter, argb: np.ndarray, quality: int,
                          method: int, use_predictor, stats,
-                         hint: int = 0) -> None:
+                         hint: int = 0,
+                         device_chooser: bool | None = None) -> None:
     w = argb.shape[1]
     h = argb.shape[0]
 
@@ -2048,11 +2053,13 @@ def _encode_stream_photo(bw: BitWriter, argb: np.ndarray, quality: int,
             with _cf.ThreadPoolExecutor(min(4, len(chooser_keys))) as ex:
                 chosen = dict(zip(chooser_keys, ex.map(
                     lambda k: _choose_predictors_auto(
-                        sg_bases[k[0]], k[1], iters, row_step=speed_step),
+                        sg_bases[k[0]], k[1], iters, row_step=speed_step,
+                        device=device_chooser, stats=stats),
                     chooser_keys)))
         else:
             chosen = {k: _choose_predictors_auto(
-                sg_bases[k[0]], k[1], iters, row_step=speed_step)
+                sg_bases[k[0]], k[1], iters, row_step=speed_step,
+                device=device_chooser, stats=stats)
                 for k in chooser_keys}
 
         jobs = []
@@ -2234,8 +2241,13 @@ def _sub_scalar(pixel: int, pred: int) -> int:
 
 
 def encode_vp8l(rgba: np.ndarray, *, quality: int = 75, method: int = 4,
-                stats=None, hint: int = 0) -> bytes:
-    """(H, W, 4) uint8 RGBA → VP8L chunk payload."""
+                stats=None, hint: int = 0,
+                device_chooser: bool | None = None) -> bytes:
+    """(H, W, 4) uint8 RGBA → VP8L chunk payload.
+
+    ``device_chooser`` picks where the predictor analysis runs: None
+    decides from the input (an accelerator backend and ≥1 MP), True and
+    False force the device or the host."""
     if rgba.ndim != 3 or rgba.shape[2] not in (3, 4):
         raise EncodeError("expected (H, W, 3|4) array")
     if rgba.shape[2] == 3:
@@ -2255,7 +2267,7 @@ def encode_vp8l(rgba: np.ndarray, *, quality: int = 75, method: int = 4,
     bw.put_bits(1 if has_alpha else 0, 1)
     bw.put_bits(0, 3)  # version
     encode_vp8l_stream(argb, quality=quality, method=method, bw=bw,
-                       stats=stats, hint=hint)
+                       stats=stats, hint=hint, device_chooser=device_chooser)
     return bw.getvalue()
 
 

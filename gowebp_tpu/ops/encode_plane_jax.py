@@ -1,11 +1,11 @@
-"""TPU encode plane engine: the flagship jittable step.
+"""Open-loop encode plane engine: one jittable dense step.
 
 Performs the entire dense phase of VP8 lossy encoding for a batch of
 images in one jit region — mode search, FDCT/FWHT, quantization — in
 "parallel-intra" (open-loop) form: prediction context comes from the
 *source* planes instead of the reconstruction, which removes the
 macroblock wavefront dependency entirely.  Every MB of every image is
-processed simultaneously; this is what makes the encoder scale on a TPU
+processed simultaneously; this is what makes the encoder scale on a device
 mesh (batch → data parallel, width tiles → model parallel with 1-column
 halos; see gowebp_tpu/parallel/).
 
@@ -170,9 +170,9 @@ def encode_plane_core(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac, uv_dc, uv_ac,
 
 # ---------------------------------------------------------------------------
 # Plane-layout engine (v2): identical integer semantics to
-# encode_plane_core, restructured for the TPU memory system.  All work
-# happens on (B, H, W) tensors whose minor axis stays image-width-sized
-# (lane-friendly); the 4x4 DCT butterflies become stride-4 plane slices
+# encode_plane_core, restructured so the minor axis stays wide.  All work
+# happens on (B, H, W) tensors whose minor axis stays image-width-sized;
+# the 4x4 DCT butterflies become stride-4 plane slices
 # instead of (..., 4, 4) micro-blocks, so XLA never materializes the
 # tiny-minor-dim transposes that dominated the original formulation.
 # One block/zigzag regroup gather runs at the very end.
@@ -342,7 +342,7 @@ def encode_plane_core_v2(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac,
                          y_halo=None, u_halo=None, v_halo=None,
                          leftmost=None):
     """Plane-layout dense encode phase; bit-identical to
-    encode_plane_core (same outputs), several times faster on TPU."""
+    encode_plane_core (same outputs) without tiny-minor-dim transposes."""
     def qp(q):
         return (1 << 17) // q
 
@@ -390,32 +390,13 @@ def encode_plane_core_v2(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac,
 
 @partial(jax.jit, static_argnames=("y1_dc", "y1_ac", "y2_dc", "y2_ac",
                                    "uv_dc", "uv_ac"))
-def _encode_plane_step_xla(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac,
-                           uv_dc, uv_ac):
+def encode_plane_step(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac, uv_dc, uv_ac):
+    """Single-device jitted entry (see encode_plane_core_v2)."""
     return encode_plane_core_v2(
         y, u, v,
         y1_dc=y1_dc, y1_ac=y1_ac, y2_dc=y2_dc, y2_ac=y2_ac,
         uv_dc=uv_dc, uv_ac=uv_ac,
     )
-
-
-def encode_plane_step(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac, uv_dc, uv_ac):
-    """Single-device jitted entry (see encode_plane_core_v2).
-
-    With GOWEBP_PALLAS=1 on a TPU backend, dispatches to the fused
-    Pallas kernels (ops/pallas/encode_plane.py — bit-identical outputs);
-    otherwise runs the pure-XLA plane engine.
-    """
-    import os
-
-    kwargs = dict(y1_dc=y1_dc, y1_ac=y1_ac, y2_dc=y2_dc, y2_ac=y2_ac,
-                  uv_dc=uv_dc, uv_ac=uv_ac)
-    if (os.environ.get("GOWEBP_PALLAS") == "1"
-            and jax.default_backend() == "tpu"):
-        from .pallas.encode_plane import encode_plane_step_pallas
-
-        return encode_plane_step_pallas(y, u, v, **kwargs)
-    return _encode_plane_step_xla(y, u, v, **kwargs)
 
 
 __all__ = ["encode_plane_step", "encode_plane_core", "encode_plane_core_v2"]

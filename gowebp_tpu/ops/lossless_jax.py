@@ -1,4 +1,4 @@
-"""VP8L transforms as JAX array programs (TPU plane engine).
+"""VP8L transforms as JAX array programs (device plane engine).
 
 Batched (…, H, W) uint32 ARGB pixels.  The encode-side transforms
 (subtract-green, cross-color, predictor residuals, palette packing) are
@@ -220,7 +220,7 @@ def predict_plane(argb: jnp.ndarray, mode: int) -> jnp.ndarray:
 
 @partial(jax.jit, static_argnames=("bits",))
 def predictor_search(argb: jnp.ndarray, bits: int):
-    """Per-tile best-of-14 predictor by residual-cost proxy (TPU-shaped).
+    """Per-tile best-of-14 predictor by residual-cost proxy (device-shaped).
 
     Returns (mode_img uint32 ARGB tile pixels, residual image uint32).
     """
@@ -257,6 +257,18 @@ def predictor_search(argb: jnp.ndarray, bits: int):
     return mode_img, residual
 
 
+def chosen_histogram(onehot_modes, histf):
+    """(T, 14) one-hot tile modes × (14, T, 4, 256) tile histograms →
+    (4, 256) histogram of the chosen residuals.
+
+    The counts are integers below 2^24 (at most the image's pixel
+    count), so every partial sum is exact in f32 at HIGHEST precision;
+    TF32 operands would round tile counts above 2^11.
+    """
+    return jnp.einsum("tm,mtcb->cb", onehot_modes, histf,
+                      precision=lax.Precision.HIGHEST)
+
+
 def _residual_cost_table():
     import numpy as np
 
@@ -270,7 +282,7 @@ def predictor_search_entropy(argb: jnp.ndarray, bits: int,
                              refine_iters: int = 4) -> jnp.ndarray:
     """Per-tile best-of-14 predictor by residual-histogram ENTROPY.
 
-    The TPU twin of the host chooser (`wtpu_vp8l_choose_predictors`,
+    The device twin of the host chooser (`wtpu_vp8l_choose_predictors`,
     entropy/native/vp8l_dec.cpp:666; reference cost model:
     predictor_enc.go:227-716 GetBestPredictorsAndSubSampling): stage 1
     scores each tile by the Shannon entropy of its four per-channel
@@ -286,6 +298,8 @@ def predictor_search_entropy(argb: jnp.ndarray, bits: int,
     Scores use f32 (the host uses f64), so rare near-tie tiles may
     pick a different — equally priced — mode; the golden test pins
     tile agreement and output size, not bit equality of the mode map.
+    Every contraction runs at HIGHEST precision: at the default one an
+    H100 may round the f32 operands to TF32.
 
     Returns the mode map as (th, tw) int32.
     """
@@ -342,10 +356,11 @@ def predictor_search_entropy(argb: jnp.ndarray, bits: int,
     # stage 2: refinement against the global chosen-residual law
     def refine(_, modes):
         mh = jax.nn.one_hot(modes, 14, dtype=jnp.float32)      # (T, 14)
-        glob = jnp.einsum("tm,mtcb->cb", mh, histf)
+        glob = chosen_histogram(mh, histf)
         tot = glob.sum(axis=1, keepdims=True)
         logp = jnp.log2((glob + 0.1) / (tot + 25.6))
-        cost = -jnp.einsum("mtcb,cb->mt", histf, logp)         # (14, T)
+        cost = -jnp.einsum("mtcb,cb->mt", histf, logp,
+                           precision=lax.Precision.HIGHEST)    # (14, T)
         mcount = mh.sum(axis=0)
         mode_cost = -jnp.log2((mcount + 0.1) / (T + 1.4))
         return jnp.argmin(cost + mode_cost[:, None],
@@ -365,7 +380,7 @@ def predictor_inverse(residuals: jnp.ndarray, mode_img: jnp.ndarray,
     """Exact inverse via lax.scan over rows, inner scan over columns.
 
     Correct but scalar-sequential in-row — the production decode path
-    uses the native host kernel; this exists for the all-TPU pipeline.
+    uses the native host kernel; this exists for an all-device pipeline.
     """
     h, w = residuals.shape
     modes = ((mode_img >> 8) & _FF).astype(jnp.int32)

@@ -1,7 +1,7 @@
-"""Batched YUV↔RGB + fancy upsampling in JAX (TPU post-processing).
+"""Batched YUV↔RGB + fancy upsampling in JAX (device post-processing).
 
 Batch decode pipeline: host entropy/reconstruction → stacked YUV planes
-→ TPU chroma upsample + color conversion for the whole batch at once.
+→ device chroma upsample + color conversion for the whole batch at once.
 Exact integer math, golden-tested against ops/yuv_np.py.
 """
 
@@ -106,30 +106,14 @@ def fancy_upsample(chroma: jnp.ndarray, height: int, width: int) -> jnp.ndarray:
 
 
 @jax.jit
-def _batch_yuv_to_rgba_xla(y: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray):
+def batch_yuv_to_rgba(y: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray):
+    """(B, H, W) + (B, H2, W2) chroma → (B, H, W, 4) uint8 RGBA."""
     B, H, W = y.shape
     uf = fancy_upsample(u, H, W)
     vf = fancy_upsample(v, H, W)
     rgb = yuv_to_rgb(y, uf.astype(jnp.int32), vf.astype(jnp.int32))
     alpha = jnp.full((B, H, W, 1), 255, jnp.uint8)
     return jnp.concatenate([rgb, alpha], axis=-1)
-
-
-def batch_yuv_to_rgba(y: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray):
-    """(B, H, W) + (B, H2, W2) chroma → (B, H, W, 4) uint8 RGBA.
-
-    With GOWEBP_PALLAS=1 on a TPU backend (and kernel-compatible
-    shapes), dispatches to the fused upsample+convert Pallas kernel."""
-    import os
-
-    B, H, W = y.shape
-    if (os.environ.get("GOWEBP_PALLAS") == "1"
-            and jax.default_backend() == "tpu"
-            and H % 16 == 0 and W % 2 == 0 and u.shape[-1] == W // 2):
-        from .pallas.decode_post import yuv420_to_rgba_pallas
-
-        return yuv420_to_rgba_pallas(y, u, v)
-    return _batch_yuv_to_rgba_xla(y, u, v)
 
 
 __all__ = ["yuv_to_rgb", "rgb_to_yuv420", "fancy_upsample", "batch_yuv_to_rgba"]

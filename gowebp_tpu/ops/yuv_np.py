@@ -2,7 +2,7 @@
 
 Exact integer NumPy reference, matching libwebp's BT.601 fixed-point math
 (constants confirmed against /root/reference/pkg/color/yuv/conversion.go
-and dsp/upsampling.c.go).  JAX/TPU versions live in ops/yuv_jax.py.
+and dsp/upsampling.c.go).  JAX versions live in ops/yuv_jax.py.
 """
 
 from __future__ import annotations

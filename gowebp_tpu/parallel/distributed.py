@@ -1,6 +1,6 @@
 """Multi-host initialization and global meshes.
 
-SURVEY.md §5.9's TPU-native answer: per-host `jax.distributed`
+SURVEY.md §5.9's answer: per-host `jax.distributed`
 initialization, a global (data, tile) mesh spanning all hosts, and
 host-local shard assembly for entropy-coded outputs (each host boolean-
 codes the token partitions of its own stripes; the per-partition size

@@ -1,8 +1,9 @@
 """Device-mesh construction for multi-chip/multi-host runs.
 
-The codec shards along two axes (SURVEY.md §2.10's TPU-native mapping):
-  - "data": batch of images → pure data parallelism (DCN-friendly)
-  - "tile": spatial width tiles within an image → halo exchange over ICI
+The codec shards along two axes (SURVEY.md §2.10's mapping):
+  - "data": batch of images → pure data parallelism
+  - "tile": spatial tiles within an image → halo exchange between
+    devices (NVLink on a multi-GPU host)
 
 Equivalent reference surface: none (the reference is single-process;
 §2.10 catalogues its thread-level parallelism, which batch/tile sharding

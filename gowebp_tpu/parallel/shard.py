@@ -5,9 +5,9 @@ The encode plane engine shards as:
   width  → "tile" axis (each shard encodes a vertical stripe of MBs;
            the only cross-shard dependency is the 1-pixel-wide source
            column of the left neighbor, exchanged with lax.ppermute
-           over ICI before the dense phase runs)
+           before the dense phase runs)
 
-This is the TPU-native re-expression of the reference's format-level
+This is the device-mesh re-expression of the reference's format-level
 parallel hooks (VP8 token partitions / MB-row round-robin — SURVEY.md
 §2.10 item 2): entropy coding stays per-stripe-local on the host while
 the plane math scales over the mesh.
@@ -19,10 +19,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.8 promotes shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops.encode_plane_jax import encode_plane_core_v2
 
@@ -67,12 +64,8 @@ def sharded_encode_plane_step(mesh: Mesh, y, u, v, *, quants):
         "y2_levels": P("data", None, "tile", None),
         "uv_levels": P("data", None, "tile", None, None),
     }
-    try:
-        fn = shard_map(step, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_vma=False)
-    except TypeError:  # pragma: no cover - pre-0.8 jax kwarg
-        fn = shard_map(step, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_rep=False)
+    fn = shard_map(step, mesh=mesh, in_specs=specs_in,
+                   out_specs=specs_out, check_vma=False)
     return jax.jit(fn)(y, u, v)
 
 
@@ -85,7 +78,7 @@ def sharded_wavefront_encode(mesh: Mesh, y, u, v, seg_map, qsteps, tables,
     Per diagonal step, the only cross-shard inputs are the row-shift
     context reads (one reconstructed MB edge strip: 16 px luma + 8 px
     chroma rows + the DC-diffusion pairs), exchanged with lax.ppermute
-    over ICI inside the step — SURVEY §2.10's halo-exchange plan
+    inside the step — SURVEY §2.10's halo-exchange plan
     applied to the sequential-exact engine, so a single huge image can
     use every device on the mesh.  Bit-identical to the single-device
     `encode_wavefront_core` (asserted by tests and the multichip
@@ -129,12 +122,8 @@ def sharded_wavefront_encode(mesh: Mesh, y, u, v, seg_map, qsteps, tables,
         "y2_levels": P("data", "tile", None, None),
         "uv_levels": P("data", "tile", None, None, None),
     }
-    try:
-        fn = shard_map(body, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_vma=False)
-    except TypeError:  # pragma: no cover - pre-0.8 jax kwarg
-        fn = shard_map(body, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_rep=False)
+    fn = shard_map(body, mesh=mesh, in_specs=specs_in,
+                   out_specs=specs_out, check_vma=False)
     out = jax.jit(fn)(y, u, v, seg_map, qsteps, pen, *tables)
     return _unskew_out(out, mw, mh, want_recon=False)
 
@@ -147,17 +136,20 @@ def sharded_recon_frame(mesh: Mesh, coeffs, is_i4, imodes, uvmode, fparams,
     the loop filter additionally sends each shard's filtered top-edge
     rows back to the shard above with a reverse ppermute.  Bit-identical
     to the single-device `recon_frame`.
-    """
-    import jax.numpy as jnp
 
+    When mb_h is not a multiple of the tile axis, dead MB rows are
+    appended and cut off again: no row reads context from the row below
+    it, and a filter limit of -1 disables every edge a dead row owns
+    (its top edge included), so the real rows are unchanged.
+    """
     from ..ops.vp8_recon_jax import (
         I32, _unskew_plane, loop_filter_wavefront, recon_wavefront,
         residual_blocks)
 
     tile_n = mesh.devices.shape[mesh.axis_names.index("tile")]
-    if mb_h % tile_n:
-        raise ValueError(f"mb_h={mb_h} not divisible by tile axis {tile_n}")
-    mh_local = mb_h // tile_n
+    pad = -mb_h % tile_n
+    mh_all = mb_h + pad
+    mh_local = mh_all // tile_n
 
     def body(c3, is3, im3, uv3, fp):
         nl = mh_local * mb_w
@@ -170,34 +162,38 @@ def sharded_recon_frame(mesh: Mesh, coeffs, is_i4, imodes, uvmode, fparams,
             im3.reshape(B_l, nl, 16).astype(I32),
             uv3.reshape(B_l, nl).astype(I32),
             mb_w=mb_w, mb_h=mh_local,
-            axis_name="tile", mb_h_global=mb_h, n_shards=tile_n)
+            axis_name="tile", mb_h_global=mh_all, n_shards=tile_n)
         return loop_filter_wavefront(
             *sk, fp, mb_w=mb_w, mb_h=mh_local, filter_type=filter_type,
-            axis_name="tile", mb_h_global=mb_h, n_shards=tile_n)
+            axis_name="tile", mb_h_global=mh_all, n_shards=tile_n)
 
     row3 = P("data", "tile", None)
     specs_in = (row3, row3, row3, row3, P("data", "tile", None, None))
     sk_spec = P("data", "tile", None, None, None)
     specs_out = (sk_spec, sk_spec, sk_spec)
-    try:
-        fn = shard_map(body, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_vma=False)
-    except TypeError:  # pragma: no cover - pre-0.8 jax kwarg
-        fn = shard_map(body, mesh=mesh, in_specs=specs_in,
-                       out_specs=specs_out, check_rep=False)
+    fn = shard_map(body, mesh=mesh, in_specs=specs_in,
+                   out_specs=specs_out, check_vma=False)
     B = coeffs.shape[0]
-    # Row-major N axis made explicit so rows shard over 'tile'.
+
+    def rows(a, per_row, fill=0):
+        """Row-major N axis made explicit so rows shard over 'tile'."""
+        a = jnp.asarray(a).reshape((B, mb_h) + per_row)
+        if pad:
+            a = jnp.concatenate(
+                [a, jnp.full((B, pad) + per_row, fill, a.dtype)], axis=1)
+        return a
+
     Sk_y, Sk_u, Sk_v = jax.jit(fn)(
-        jnp.asarray(coeffs).reshape(B, mb_h, mb_w * 24 * 16),
-        jnp.asarray(is_i4).reshape(B, mb_h, mb_w),
-        jnp.asarray(imodes).reshape(B, mb_h, mb_w * 16),
-        jnp.asarray(uvmode).reshape(B, mb_h, mb_w),
-        jnp.asarray(fparams).reshape(B, mb_h, mb_w, 4),
+        rows(coeffs, (mb_w * 24 * 16,)),
+        rows(is_i4, (mb_w,)),
+        rows(imodes, (mb_w * 16,)),
+        rows(uvmode, (mb_w,)),
+        rows(fparams, (mb_w, 4), fill=-1),
     )
-    Y = _unskew_plane(Sk_y, mb_w, mb_h, 16).astype(jnp.uint8)
-    U = _unskew_plane(Sk_u, mb_w, mb_h, 8).astype(jnp.uint8)
-    V = _unskew_plane(Sk_v, mb_w, mb_h, 8).astype(jnp.uint8)
-    return Y, U, V
+    Y = _unskew_plane(Sk_y, mb_w, mh_all, 16)[:, :16 * mb_h]
+    U = _unskew_plane(Sk_u, mb_w, mh_all, 8)[:, :8 * mb_h]
+    V = _unskew_plane(Sk_v, mb_w, mh_all, 8)[:, :8 * mb_h]
+    return Y.astype(jnp.uint8), U.astype(jnp.uint8), V.astype(jnp.uint8)
 
 
 def _flat_batch_axes(mesh: Mesh) -> tuple:
@@ -211,7 +207,7 @@ def sharded_recon_step(mesh: Mesh, coeffs, is_i4, imodes, uvmode, fparams,
     filter) sharded batch-parallel over every device in the mesh.
 
     Decode has no cross-image dependency, so the batch axis shards over
-    the flattened (data × tile) mesh — the TPU-native replacement for
+    the flattened (data × tile) mesh — the device-mesh replacement for
     the reference's 2-thread decode pipeline (SURVEY §2.10 item 1).
     Returns uint8 Y/U/V planes with the same sharding.
     """
@@ -226,12 +222,8 @@ def sharded_recon_step(mesh: Mesh, coeffs, is_i4, imodes, uvmode, fparams,
     bspec = P(axes)
     in_specs = (bspec, bspec, bspec, bspec, bspec)
     out_specs = (bspec, bspec, bspec)
-    try:
-        fn = shard_map(step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover - pre-0.8 jax kwarg
-        fn = shard_map(step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_rep=False)
+    fn = shard_map(step, mesh=mesh, in_specs=in_specs,
+                   out_specs=out_specs, check_vma=False)
     return jax.jit(fn)(coeffs, is_i4, imodes, uvmode, fparams)
 
 
@@ -252,12 +244,8 @@ def sharded_lossless_inverse(mesh: Mesh, residuals, mode_img, *, bits: int):
         out = jax.vmap(lambda r: predictor_inverse(r, modes, bits))(res)
         return jax.vmap(add_green_inverse)(out)
 
-    try:
-        fn = shard_map(step, mesh=mesh, in_specs=(P(axes), P()),
-                       out_specs=P(axes), check_vma=False)
-    except TypeError:  # pragma: no cover - pre-0.8 jax kwarg
-        fn = shard_map(step, mesh=mesh, in_specs=(P(axes), P()),
-                       out_specs=P(axes), check_rep=False)
+    fn = shard_map(step, mesh=mesh, in_specs=(P(axes), P()),
+                   out_specs=P(axes), check_vma=False)
     return jax.jit(fn)(residuals, mode_img)
 
 

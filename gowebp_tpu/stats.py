@@ -35,6 +35,7 @@ class EncodeStats:
     cache_bits: int = 0
     transforms: list = field(default_factory=list)   # names applied
     num_huffman_groups: int = 1
+    predictor_chooser: str = ""       # "device" or "host" when analysed
 
 
 __all__ = ["EncodeStats"]

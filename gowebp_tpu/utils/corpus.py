@@ -3,7 +3,7 @@
 The environment cannot download photographic test sets, and pure
 sinusoid+noise fixtures have un-photographic statistics (thin spectra,
 no occlusion edges), which weakens every ratio/PSNR parity claim made
-on them (VERDICT r4 weak-#7).  This module synthesizes images that
+on them.  This module synthesizes images that
 reproduce the three statistics codecs actually key on:
 
 1. **Occlusion structure** — a dead-leaves model (opaque ellipses with a

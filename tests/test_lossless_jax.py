@@ -75,8 +75,8 @@ class TestPredictors:
 
 
 class TestPredictorEntropySearch:
-    """TPU entropy chooser == host chooser (modes near-identical, output
-    size at parity) — VERDICT r3 item 5."""
+    """Device entropy chooser == host chooser (modes near-identical,
+    output size at parity)."""
 
     def _image(self, h=160, w=192, seed=2):
         rng = np.random.default_rng(seed)
@@ -104,13 +104,15 @@ class TestPredictorEntropySearch:
             assert agree >= 0.95, (
                 f"bits={bits}: only {agree:.1%} tile agreement")
 
-    def test_size_parity_when_forced(self, monkeypatch):
+    def test_size_parity_when_forced(self):
         import io
 
         from PIL import Image
 
-        import gowebp_tpu
-        from gowebp_tpu.config import EncoderConfig
+        from gowebp_tpu.constants import CHUNK_VP8L
+        from gowebp_tpu.container.riff import Chunk, assemble_simple
+        from gowebp_tpu.models.vp8l.encoder import encode_vp8l
+        from gowebp_tpu.stats import EncodeStats
 
         rng = np.random.default_rng(5)
         h, w = 144, 176
@@ -121,11 +123,13 @@ class TestPredictorEntropySearch:
         img[..., 1] = np.clip(110 + 45 * np.cos(yy / 23), 0, 255)
         img[..., 2] = ((xx + 2 * yy) // 4) % 256
 
-        base = gowebp_tpu.encode_rgba(
-            img, config=EncoderConfig(lossless=True, quality=75))
-        monkeypatch.setenv("GOWEBP_TPU_VP8L_ANALYSIS", "1")
-        forced = gowebp_tpu.encode_rgba(
-            img, config=EncoderConfig(lossless=True, quality=75))
+        base_stats, forced_stats = EncodeStats(), EncodeStats()
+        base = assemble_simple(Chunk(CHUNK_VP8L, encode_vp8l(
+            img, quality=75, stats=base_stats)))
+        forced = assemble_simple(Chunk(CHUNK_VP8L, encode_vp8l(
+            img, quality=75, stats=forced_stats, device_chooser=True)))
+        assert base_stats.predictor_chooser == "host"
+        assert forced_stats.predictor_chooser == "device"
         # both must round-trip and price within a fraction of a percent
         assert np.array_equal(
             np.asarray(Image.open(io.BytesIO(forced)).convert("RGB")), img)

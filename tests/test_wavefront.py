@@ -1,4 +1,4 @@
-"""Exact closed-loop TPU wavefront encoder: equality + stream validity."""
+"""Exact closed-loop wavefront encoder: equality + stream validity."""
 
 import numpy as np
 
@@ -31,8 +31,7 @@ def test_wavefront_equals_sequential():
     for b in range(B):
         nat = _encode_frame_dense_native(y[b], u[b], v[b], W // 16, H // 16,
                                          q, method=0)
-        if nat is None:  # no native lib: nothing to compare against
-            return
+        assert nat is not None, "native host layer did not build"
         for key, nk in (("ymode", "ymode"), ("uvmode", "uvmode"),
                         ("y2_levels", "y2"), ("y_levels", "yl"),
                         ("uv_levels", "uvl")):
@@ -85,8 +84,7 @@ def test_wavefront_i4_segments_equals_sequential():
                "quants": quants}
         nat = _encode_frame_dense_native(y[b], u[b], v[b], mw, mh, q0,
                                          method=4, seg=seg)
-        if nat is None:  # no native lib: nothing to compare against
-            return
+        assert nat is not None, "native host layer did not build"
         for key, nk in (("ymode", "ymode"), ("uvmode", "uvmode"),
                         ("is_i4", "is_i4"), ("imodes", "imodes"),
                         ("y2_levels", "y2"), ("y_levels", "yl"),
